@@ -5,18 +5,18 @@
 set -euo pipefail
 HERE=$(cd "$(dirname "$0")" && pwd)
 REPO=$(dirname "$HERE")
-DATA=${DATA:-/root/reference/examples/data}
-WORK=${WORK:-/tmp/mpibwa_tpu_example}
-
-mkdir -p "$WORK"
-if [ ! -f "$WORK/hg19.small.fa" ]; then
-    tar xzf "$DATA/hg19.small.tar.gz" -C "$WORK"
-fi
+WORK=${WORK:-${TMPDIR:-/tmp}/mpibwa_example}
+GENOME_BP=${GENOME_BP:-5000000}
+PAIRS=${PAIRS:-10000}
 
 cd "$REPO"
-python -m mpibwa_tpu.cli membychr \
-    -o "$WORK/by_chr" \
-    "$WORK/hg19.small.fa" \
-    "$DATA/HCC1187C_R1_10K.fastq" \
-    "$DATA/HCC1187C_R2_10K.fastq"
+if [ ! -f "$WORK/genome.fa.bwt" ]; then
+    # seeded genome + 2x150 pairs (mpibwa_tpu/io/simulate.py), then its index
+    python -m mpibwa_tpu.io.simulate "$WORK" --genome-bp "$GENOME_BP" \
+        --pairs "$PAIRS"
+    python -m mpibwa_tpu.cli index "$WORK/genome.fa"
+fi
+
+python -m mpibwa_tpu.cli membychr -o "$WORK/by_chr" "$WORK/genome.fa" \
+    "$WORK/r1.fq" "$WORK/r2.fq"
 ls -la "$WORK/by_chr"

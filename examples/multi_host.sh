@@ -5,7 +5,7 @@
 # reference prefix, FASTQ inputs and OUT must live on a filesystem shared
 # by every host (the same requirement mpiBWA's MPI-IO output has). Each
 # shard aligns its deterministic slice of the chunk sequence on its own
-# host's TPU(s); the launcher merges the per-shard extents into one file.
+# host's GPU(s); the launcher merges the per-shard extents into one file.
 #
 # Usage: ./multi_host.sh "host1,host2" OUT REF R1.fastq [R2.fastq]
 # (hosts of "localhost,localhost" exercise the same code path with two

@@ -2,7 +2,7 @@
 #PBS -N mpibwa-tpu
 #PBS -l nodes=4:ppn=1
 #PBS -l walltime=04:00:00
-# PBS launcher for a TPU pod slice (the examples/pbs.sh analog of the
+# PBS launcher for a GPU cluster (the examples/pbs.sh analog of the
 # reference): one shard per node via the ssh-based launch mode; inputs and
 # OUT live on the shared filesystem.
 set -euo pipefail

@@ -1,10 +1,10 @@
 #!/usr/bin/env bash
 #SBATCH --job-name=mpibwa-tpu
-#SBATCH --nodes=4                 # one shard per TPU host
+#SBATCH --nodes=4                 # one shard per GPU host
 #SBATCH --ntasks-per-node=1
 #SBATCH --time=04:00:00
-# Slurm launcher for a TPU pod slice (the examples/slurm.sh analog of the
-# reference). Every node runs one shard against its local TPU chips
+# Slurm launcher for a GPU cluster (the examples/slurm.sh analog of the
+# reference). Every node runs one shard against its local cards
 # (MPIBWA_DEVICES=all); inputs + OUT live on the shared filesystem.
 set -euo pipefail
 

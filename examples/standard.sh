@@ -1,21 +1,21 @@
 #!/bin/bash
-# Paired-end alignment of the bundled 10K-read test data (the equivalent of
-# the reference's examples/standard.sh mpirun invocation).
+# Paired-end alignment of a generated read set (the equivalent of the
+# reference's examples/standard.sh mpirun invocation).
 set -euo pipefail
 HERE=$(cd "$(dirname "$0")" && pwd)
 REPO=$(dirname "$HERE")
-DATA=${DATA:-/root/reference/examples/data}
-WORK=${WORK:-/tmp/mpibwa_tpu_example}
-
-mkdir -p "$WORK"
-if [ ! -f "$WORK/hg19.small.fa" ]; then
-    tar xzf "$DATA/hg19.small.tar.gz" -C "$WORK"
-fi
+WORK=${WORK:-${TMPDIR:-/tmp}/mpibwa_example}
+GENOME_BP=${GENOME_BP:-5000000}
+PAIRS=${PAIRS:-10000}
 
 cd "$REPO"
-python -m mpibwa_tpu.cli mem -t 8 \
-    -o "$WORK/HCC1187C" \
-    "$WORK/hg19.small.fa" \
-    "$DATA/HCC1187C_R1_10K.fastq" \
-    "$DATA/HCC1187C_R2_10K.fastq"
-echo "output: $WORK/HCC1187C.sam"
+if [ ! -f "$WORK/genome.fa.bwt" ]; then
+    # seeded genome + 2x150 pairs (mpibwa_tpu/io/simulate.py), then its index
+    python -m mpibwa_tpu.io.simulate "$WORK" --genome-bp "$GENOME_BP" \
+        --pairs "$PAIRS"
+    python -m mpibwa_tpu.cli index "$WORK/genome.fa"
+fi
+
+python -m mpibwa_tpu.cli mem -t 8 -o "$WORK/pe" "$WORK/genome.fa" \
+    "$WORK/r1.fq" "$WORK/r2.fq"
+echo "output: $WORK/pe.sam"

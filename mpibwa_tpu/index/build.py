@@ -3,12 +3,11 @@
 Produces the same on-disk artifacts a bwa-0.7.17 `bwa index` run yields
 (.pac/.ann/.amb byte-identical including the lrand48 hole filling; .bwt/.sa
 byte-identical because the BWT of the forward+reverse packed sequence and
-the sampled suffix array are canonical), then packs them into the flat TPU
-image (pidx.c equivalent).
+the sampled suffix array are canonical), then packs them into the flat
+.tpumap image (pidx.c equivalent).
 
-Formats: bns_fasta2bntseq (/root/reference/src/bntseq.c:220-327),
-bwt dump (/root/reference/src/bwt.c:385-407), sampling bwt_cal_sa
-(/root/reference/src/bwt.c:62-84).
+Formats: bns_fasta2bntseq (bwa src/bntseq.c:220-327), bwt dump
+(src/bwt.c:385-407), sampling bwt_cal_sa (src/bwt.c:62-84).
 """
 
 from __future__ import annotations
@@ -208,23 +207,13 @@ def build_fmindex(pac: np.ndarray, l_pac: int, sa_intv: int = 32):
     # last block has only ceil(partial/16) words), then ONE trailing occ
     # record holding the totals (bwt_bwtupdate_core appends it; queries
     # never read it but file parity requires it).
+    # Only the last block can be partial, so the layout is the interleaved
+    # array with the last block's unused words cut.
     n_data_words = (n + 15) // 16
     totals = np.bincount(bwt_chars, minlength=4).astype(np.uint64)
-    if n_data_words == n_blocks * 8:
-        # every block full (n % 128 == 0): the interleaved array IS the
-        # file layout — avoids the per-block Python list (Gbp genomes
-        # have tens of millions of blocks)
-        bwt_arr = np.concatenate([inter.reshape(-1),
-                                  totals.view(np.uint32)])
-    else:
-        flat = []
-        for b in range(n_blocks):
-            flat.append(inter[b, :8])
-            lo = b * 8
-            hi = min((b + 1) * 8, n_data_words)
-            flat.append(inter[b, 8 : 8 + (hi - lo)])
-        flat.append(totals.view(np.uint32))
-        bwt_arr = np.concatenate(flat).astype(np.uint32)
+    last_words = n_data_words - (n_blocks - 1) * 8
+    bwt_arr = np.concatenate([inter[:-1].reshape(-1), inter[-1, : 8 + last_words],
+                              totals.view(np.uint32)])
     # sampled SA with bwt_cal_sa semantics: sa[r/intv] = SA value of rank r
     # where bwt_sa(r) = (r==0 ? n : suffix) ... C: isa=0,sa=seq_len; walk.
     # Equivalently: sampled[r//intv] = (suffixes[r]) with sa[0] = -1.

@@ -1,4 +1,4 @@
-"""bwa-index file formats and the flat TPU image.
+"""bwa-index file formats and the flat .tpumap image.
 
 Reads the on-disk index produced by ``bwa index`` (the same files the
 reference loads via ``bwa_idx_load_from_disk``, /root/reference/src/bwa.c:262)
@@ -191,8 +191,8 @@ def load_index(prefix: str) -> BwaIndex:
 
 
 # ---------------------------------------------------------------------------
-# Flat TPU image (.tpumap): the analog of mpiBWAIdx's .map blob
-# (/root/reference/src/pidx.c:52-63, layout bwa.c:310-345) but defined as a
+# Flat image (.tpumap): the analog of mpiBWAIdx's .map blob
+# (mpiBWA src/pidx.c:52-63, layout bwa.c:310-345) but defined as a
 # versioned, pointer-free container of aligned arrays that can be memory-
 # mapped zero-copy and fed to jnp.asarray per array.
 # ---------------------------------------------------------------------------

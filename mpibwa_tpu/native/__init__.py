@@ -25,21 +25,44 @@ _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def _compile() -> None:
+    """Compile to a private file, then rename: concurrent builders (test
+    workers, shard processes) never see a half-written library."""
     srcs = [os.path.join(_DIR, s) for s in _SOURCES]
+    cc = os.environ.get("CC", "cc")
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [cc, "-O2", "-fPIC", "-shared", "-pthread", "-o", tmp] \
+        + srcs + ["-lm"]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _build() -> bool:
     newest = max(os.path.getmtime(os.path.join(_DIR, f))
                  for f in _SOURCES + _HEADERS)
     if (os.path.exists(_LIB_PATH)
             and os.path.getmtime(_LIB_PATH) >= newest):
         return True
-    cc = os.environ.get("CC", "cc")
-    cmd = [cc, "-O2", "-fPIC", "-shared", "-pthread", "-o", _LIB_PATH] \
-        + srcs + ["-lm"]
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
+        _compile()
         return True
     except (subprocess.CalledProcessError, FileNotFoundError):
         return False
+
+
+def rebuild() -> str:
+    """Compile the library from the sources now, replacing any copy already
+    on disk (which may not come from these sources); raises on a compiler
+    error. Returns the library's path. Call before the first get_lib()."""
+    global _lib, _tried
+    with _lock:
+        _compile()
+        _lib, _tried = None, False
+    return _LIB_PATH
 
 
 def get_lib():

@@ -1,4 +1,4 @@
-"""Device (JAX/Pallas) kernels.
+"""Device (JAX) kernels.
 
 Interval arithmetic needs 64-bit (human genome doubled exceeds 2^32), so
 importing this package enables jax x64 mode.

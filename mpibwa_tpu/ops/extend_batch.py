@@ -35,6 +35,20 @@ def _maxscan_decay(t: jnp.ndarray, decay: jnp.ndarray) -> jnp.ndarray:
     return out
 
 
+def standard_mat_ab(mat) -> "tuple[int, int] | None":
+    """If mat is the bwa_fill_scmat(a, b) shape, return (a, b); else None."""
+    m = np.asarray(mat).reshape(5, 5).astype(np.int64)
+    a = int(m[0, 0])
+    b = int(-m[0, 1])
+    want = np.full((5, 5), -1, np.int64)
+    for i in range(4):
+        for j in range(4):
+            want[i, j] = a if i == j else -b
+    if np.array_equal(m, want):
+        return a, b
+    return None
+
+
 class ExtendOut(NamedTuple):
     score: jnp.ndarray
     qle: jnp.ndarray
@@ -212,17 +226,12 @@ def extend_batch(qs: jnp.ndarray, ts: jnp.ndarray, qlens: jnp.ndarray,
                      state["max_ie"] + 1, state["gscore"], state["max_off"])
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 6, 7, 8, 9, 10))
+@functools.partial(jax.jit, static_argnums=(3, 4, 6, 7, 8, 9))
 def extend_from_coords(fm, qd: jnp.ndarray, coords: jnp.ndarray, Q: int,
                        T: int, params: jnp.ndarray, o_del: int, e_del: int,
-                       o_ins: int, e_ins: int, ab=None, mat: jnp.ndarray = None
-                       ):
-    """Build extension problems on device from coordinates and run the DP.
-
-    Returns an ExtendOut of (B,) arrays when ab is None (XLA while-loop
-    kernel); with ab set (Pallas path) it returns ONE packed (8, B) int32
-    array — rows (score, qle, tle, gtle, gscore, max_off, 0, 0) — so the
-    caller pays a single device->host pull (transpose to recover columns).
+                       o_ins: int, e_ins: int, mat: jnp.ndarray) -> ExtendOut:
+    """Build extension problems on device from coordinates and run the DP;
+    returns an ExtendOut of (B,) arrays.
 
     qd: (NR, L) uint8 read batch (device-resident); coords: (B, 6) int32
     columns (row, q_off, q_len, q_rev, r_start, t_len) where the query is
@@ -255,15 +264,5 @@ def extend_from_coords(fm, qd: jnp.ndarray, coords: jnp.ndarray, Q: int,
     ts = jnp.where(tvalid,
                    fm.ref_base(jnp.clip(tpos, 0, 2 * fm.l_pac - 1))
                    .astype(jnp.uint8), jnp.uint8(4))
-    if ab is not None:
-        # whole-DP Pallas kernel (ops/pallas_extend.py): one launch for the
-        # full row loop (13-51x the XLA while-loop here), and ONE packed
-        # (8, B) result so the host pays a single device->host pull
-        from .pallas_extend import _stage_and_run
-
-        B = coords.shape[0]
-        return _stage_and_run(qs, ts, q_len, t_len, params,
-                              jnp.asarray(np.array(ab, np.int32)), Q, T,
-                              (o_del, e_del, o_ins, e_ins), B)
     return extend_batch(qs, ts, q_len, t_len, params, mat,
                         o_del, e_del, o_ins, e_ins)

@@ -8,7 +8,7 @@ __occ_aux bit trick (bwt.c:98-105, 165-186).
 
 Interval arithmetic uses int32 when the doubled genome fits (most bacterial
 to mammalian-chromosome cases on one shard) and int64 otherwise (full human
-doubled = 6.2e9); TPUs emulate int64 so the narrow path is ~2x cheaper.
+doubled = 6.2e9).
 """
 
 from __future__ import annotations
@@ -51,10 +51,9 @@ class DeviceFMIndex:
         # The original interleaved occ+data blocks are NOT device-put here:
         # the default engines (v8 backward, OCC16 rank, OCC16 SA walk,
         # forward automaton) run entirely off the derived OCC16 table, so
-        # these ~0.375 B/base are pure HBM redundancy at GRCh38 scale
-        # (~2.3 GB of the 16 GB budget). They materialize lazily on first
-        # use — the exact fallback engines (occ4/occ4_cols) and the opt-in
-        # MPIBWA_OCC=occ4 / MPIBWA_PALLAS paths.
+        # these ~0.375 B/base are pure device-memory redundancy. They
+        # materialize lazily on first use — the exact fallback engines
+        # (occ4/occ4_cols) and the opt-in MPIBWA_OCC=occ4 path.
         self._host_occ = occ.astype(np.int32)  # (n_blocks, 4)
         self._host_data = np.ascontiguousarray(blocks[:, 8:])  # (nb, 8) u32
         self._occ = None
@@ -80,21 +79,16 @@ class DeviceFMIndex:
         self.pac = put(np.asarray(idx.pac))
         self.l_pac = int(idx.l_pac)
         self._host_bwt = idx.bwt  # for derived device layouts (O2)
-        # O2 derived table — the ONLY device-resident FM layout (2 B/base;
-        # a second table would push a doubled GRCh38 index past the 16 GB
-        # v5e HBM): one (2,) int32 row [occ_c, word] per (16-base
-        # sub-block, base), so a single-base rank is ONE cheap row gather
-        # (4.5 ns vs 11 for an 8-word row, /tmp/gbench.log) with the base
-        # folded into the index. Built eagerly so it survives pytree
+        # O2 derived table — the ONLY device-resident FM layout (2 B/base):
+        # one (2,) int32 row [occ_c, word] per (16-base sub-block, base),
+        # so a single-base rank is ONE row gather with the base folded
+        # into the index. Built eagerly so it survives pytree
         # flattening into jitted callees (extend/forward_pass take fm as
         # an argument); valid for BOTH position dtypes (counts are int32
         # for every supported genome).
         from mpibwa_tpu.ops.backward8 import build_o2
 
-        o2 = build_o2(idx.bwt)
-        if device:
-            o2 = jax.device_put(o2, device)
-        self._o2 = o2
+        self._o2 = put(build_o2(idx.bwt))
         # sa_lookup dispatches to the jitted OCC16 walk itself (the
         # pytree-jitted wrapper would lose the derived tables)
         self.sa_lookup_jit = lambda ks: self.sa_lookup(ks)
@@ -131,22 +125,8 @@ class DeviceFMIndex:
         if getattr(self, "_o2", None) is None:
             from mpibwa_tpu.ops.backward8 import build_o2
 
-            self._o2 = build_o2(self._host_bwt)
+            self._o2 = self._put(build_o2(self._host_bwt))
         return self._o2
-
-    def fused_blocks(self) -> jnp.ndarray:
-        """(n_blocks, 12) int32 fused occ+data rows: one gather serves both
-        the occ counts and the packed words (used by the fused Pallas
-        backward, ops/pallas_bwd.py). int32 interval path only. Built once
-        on device and cached."""
-        if getattr(self, "_fused", None) is None:
-            assert self.idt == jnp.int32, "fused blocks need int32 occ"
-            import jax.numpy as _jnp
-
-            self._fused = _jnp.concatenate(
-                [self.occ.astype(_jnp.int32),
-                 _jnp.asarray(self.data).view(_jnp.int32)], axis=1)
-        return self._fused
 
     def occ4_cols(self, ks: jnp.ndarray) -> jnp.ndarray:
         """(E,) int positions (negative = sentinel -1) -> (4, E) idt.
@@ -154,10 +134,8 @@ class DeviceFMIndex:
         Column-layout variant of occ4 (bwt_occ4 semantics, bwt.c:169-186)
         used by the contiguous backward engine (seeding_flat.contig).
         Blocks are gathered ROW-major (one contiguous 32-byte slice per
-        index — the fast TPU gather path; a minor-axis gather from the
-        transposed table measured ~100x slower) and transposed on device
-        so the arithmetic and outputs run in packed (4/8, E) column
-        layout."""
+        index) and transposed on device so the arithmetic and outputs run
+        in (4/8, E) column layout."""
         sent = ks < 0
         k = jnp.where(sent, 0, ks)
         k = k - (k >= self.primary)
@@ -273,10 +251,10 @@ class DeviceFMIndex:
         and base): per position a (..., 4)-wide row gather (the 4 rows of
         one sub-block) + multiply-free SWAR — vs occ4's 8-word block scan
         with multiply popcounts. Bit-identical to occ4. The all-4-counts
-        engines that call this (extend(), the exact flat fallbacks) pay
-        ~1.6x the gather cost of the retired 8-word OCC16 row; keeping a
-        second table for them would double FM HBM at GRCh38 scale, and
-        the default engines never query more than one base per position."""
+        engines that call this (extend(), the exact flat fallbacks) gather
+        four rows per position; a second table for them would double the
+        index's device memory, and the default engines never query more
+        than one base per position."""
         o2 = self.o2_tables()
         sent = ks < 0
         k = jnp.where(sent, 0, ks)
@@ -325,24 +303,7 @@ class DeviceFMIndex:
     # -- batched bidirectional extension (bwt_extend, bwt.c:262-275) ---------
 
     def extend(self, ik: jnp.ndarray, is_back: int) -> jnp.ndarray:
-        """ik: (..., 3) idt intervals -> ok: (..., 4, 3) for the 4 bases.
-
-        MPIBWA_PALLAS=1 serves eligible shapes (2-D, int32 intervals,
-        entry count a multiple of its block) via the fused Pallas kernel
-        (ops/pallas_occ4.py): ~6x faster as a standalone dispatch,
-        bit-identical output. Off by default because inside the backward
-        round loop XLA fusion already closes most of that gap (measured
-        neutral end-to-end) while the kernel adds compile time; it is the
-        seed of the round-2 full round-body fusion."""
-        import os
-
-        if (os.environ.get("MPIBWA_PALLAS", "0") == "1"
-                and self.idt == jnp.int32 and ik.ndim == 2
-                and jax.default_backend() != "cpu"):
-            from mpibwa_tpu.ops import pallas_occ4 as P
-
-            if ik.shape[0] % P.block_for(ik.shape[0]) == 0:
-                return P.extend_pallas(self, ik, is_back, False)
+        """ik: (..., 3) idt intervals -> ok: (..., 4, 3) for the 4 bases."""
         col = 0 if is_back else 1  # x[!is_back]
         oth = 1 - col
         kq = ik[..., col] - 1
@@ -444,9 +405,8 @@ class DeviceFMIndex:
         """(N,) idt SA indices -> (N,) idt positions.
 
         Routes through the O2 table in (8, W) layout — one single-base
-        rank ROW gather per inv_psi step instead of a full occ4, and
-        2-D-shaped ops throughout (1-D elementwise is ~100x slower on this
-        hardware). Position arithmetic runs in the index dtype (int64 for
+        rank ROW gather per inv_psi step instead of a full occ4. Position
+        arithmetic runs in the index dtype (int64 for
         GRCh38-scale); gathers and counts stay int32 either way."""
         if getattr(self, "_o2", None) is not None:
             N = int(ks.shape[0])

@@ -243,7 +243,7 @@ def ksw_align2_batch(fm, qd, problems, opt, N: int, T: int):
         tc[i] = p["tcoords"]
         pr[i] = (minsc, 0x10000)
     mat = jnp.asarray(m5.astype(np.int32))
-    from mpibwa_tpu.ops.pallas_extend import standard_mat_ab
+    from mpibwa_tpu.ops.extend_batch import standard_mat_ab
 
     ab = standard_mat_ab(opt.mat)
     fwd = striped_sw_u8(fm, qd, jnp.asarray(qc), N, T, jnp.asarray(tc),

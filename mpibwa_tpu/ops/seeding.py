@@ -31,6 +31,9 @@ import numpy as np
 
 from .fmd import DeviceFMIndex
 
+# Buffer caps: a read that overflows one goes to the exact host engine, so
+# they never change output. Sized on the previous accelerator; untuned on
+# the H100.
 F_CAP = 192  # max forward-pushed intervals per read (all calls)
 C_CAP = 48  # max smem1 calls per read
 P_CAP = 16  # fast-tier interval width for the backward step (99%+ of calls)

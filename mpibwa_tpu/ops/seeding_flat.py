@@ -151,9 +151,8 @@ def flat_rounds_while(fm: DeviceFMIndex, st: FlatState, qrows: jnp.ndarray,
     """Single-shot backward: run rounds until no entry is live (or the
     max_rounds safety bound), entirely on device — one dispatch, one sync.
 
-    Per-round work stays at the initial capacity E (no compaction), but on
-    HBM-bandwidth hardware that costs microseconds per round, while each
-    host sync of the segment ladder costs a full link round trip."""
+    Per-round work stays at the initial capacity E (no compaction), while
+    each host sync of the segment ladder would cost a host round trip."""
     E = st.ik.shape[0]
     NL, L = qrows.shape
     pos = jnp.arange(E, dtype=jnp.int32)
@@ -387,8 +386,8 @@ def run_backward_flat(fm: DeviceFMIndex, qrows_dev, entry_dev, n_lanes: int,
 # comparison, per-lane bookkeeping becomes (NL,)-wide searchsorted+gather,
 # and the only remaining scan is one int32 cumsum for the compaction
 # scatter. State is stored as 1-D/(small, E) arrays so the entry axis is
-# the minor dimension (packed TPU tiles; the (E, 3) layout of FlatState
-# pads 3 -> 128 lanes on every materialization).
+# the minor dimension (the (E, 3) layout of FlatState strides 3 -> the
+# entry axis on every materialization).
 # ---------------------------------------------------------------------------
 
 

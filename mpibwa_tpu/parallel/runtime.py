@@ -4,7 +4,7 @@ Per-phase wall-clock timing is logged to stderr like the reference's
 per-rank "rank N :::" lines (mainParallel.c:786-790, 1238-1317, aggregate
 stats :3266-3291); gate with verbose=False.
 
-Replaces the reference's MPI architecture with the TPU-native layout
+Replaces the reference's MPI architecture with a device-native layout
 (SURVEY §7): deterministic base-count chunks computed from a streaming
 offset/length index of the FASTQ inputs (find_chunks_info boundary math,
 parallel_aux.c:1082-1103, without the rank relay), chunk-granular on-demand
@@ -159,6 +159,7 @@ class Runtime:
         self.shard = shard
         self.n_shards = n_shards
         self.devices = devices
+        self.n_reads = 0
         if use_device and devices and len(devices) > 1:
             # devices may repeat: several workers on one chip overlap that
             # chip's host finalization with its device compute; they share
@@ -175,8 +176,8 @@ class Runtime:
             # host engines shared too: one unpacked reference per process
             fm = FMIndex.from_index(idx)
             refs = RefSeq(idx)
-            self.aligners = [DeviceAligner(idx, opt, dfm=dfms[id(d)],
-                                           fm=fm, refs=refs)
+            self.aligners = [DeviceAligner(idx, opt, device=d,
+                                           dfm=dfms[id(d)], fm=fm, refs=refs)
                              for d in devices]
         elif use_device:
             from mpibwa_tpu.pipeline.device_align import DeviceAligner
@@ -197,6 +198,11 @@ class Runtime:
                                  rg_id)
 
             self.aligners = [_HostAligner()]
+
+    def fallback_reads(self) -> int:
+        """Reads the device aligners sent to the exact host engine."""
+        seen = {id(a): a for a in self.aligners if hasattr(a, "stats")}
+        return sum(a.stats["fallback_reads"] for a in seen.values())
 
     # -- chunk planning ------------------------------------------------------
 
@@ -296,6 +302,7 @@ class Runtime:
                 size = ({fi: len(b) for fi, b in payload.items()}
                         if isinstance(payload, dict) else len(payload))
                 with lock:
+                    self.n_reads += len(batch)
                     self.times["parse"] += t1 - t0
                     self.times["align"] += t2 - t1
                     self.times["fixmate"] += t3 - t2

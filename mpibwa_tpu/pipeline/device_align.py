@@ -78,6 +78,7 @@ class DeviceAligner:
         from mpibwa_tpu.pipeline.device_seed import DeviceSeeder
 
         self.opt = opt
+        self.device = device
         self.fm = fm if fm is not None else FMIndex.from_index(idx)
         self.refs = refs if refs is not None else RefSeq(idx)
         self.dfm = dfm if dfm is not None else DeviceFMIndex(idx, device)
@@ -87,21 +88,20 @@ class DeviceAligner:
 
         self.mat55d = jnp.asarray(opt.mat.reshape(5, 5).astype(np.int32))
         self._qd = None  # device read batch of the current align_regs call
-        # whole-DP Pallas extension kernel: used when the scoring matrix is
-        # the standard bwa_fill_scmat(a,b) shape and we're on a real device
-        import os
-
-        from mpibwa_tpu.ops.pallas_extend import standard_mat_ab
-
-        self.ext_ab = None
-        if os.environ.get("MPIBWA_EXT", "auto") != "xla":
-            import jax
-
-            if jax.default_backend() != "cpu":
-                self.ext_ab = standard_mat_ab(opt.mat)
         self._finalizer = None
         self._chainer = None
         self._skip_cigar_precompute = False
+
+    def _on_device(self):
+        """Context that places this thread's new device arrays on this
+        aligner's device (jax default-device contexts are per thread)."""
+        import contextlib
+
+        import jax
+
+        if self.device is None:
+            return contextlib.nullcontext()
+        return jax.default_device(self.device)
 
     def _native_finalizer(self):
         """Native (C) finalization runtime, or None -> exact Python path."""
@@ -202,7 +202,9 @@ class DeviceAligner:
         return resolve
 
     def _ext_rows_run(self, c, p, maxq, maxt):
-        """Array variant of _ext_coords_run: (n,6),(n,4) -> (n,6) int32."""
+        """Device extension DP of coordinate rows (see extend_from_coords):
+        (n,6),(n,4) -> (n,6) int32 (score, qle, tle, gtle, gscore,
+        max_off), padded to a pow2 batch and bucketed shapes."""
         import jax.numpy as jnp
 
         from mpibwa_tpu.ops.extend_batch import extend_from_coords
@@ -214,25 +216,15 @@ class DeviceAligner:
         Bp = 1 << max(4, (B - 1).bit_length())
         cc = np.zeros((Bp, 6), np.int64)  # int64: r_start is a doubled coord
         pp = np.zeros((Bp, 4), np.int32)
-        pp[:, 3] = 1
-        cc[:, 2] = 1
+        pp[:, 3] = 1  # dummy h0 > 0
+        cc[:, 2] = 1  # dummy qlen
         cc[:B] = c
         pp[:B] = p
-        order = np.argsort(cc[:B, 5], kind="stable")
-        cc[:B] = cc[:B][order]
-        pp[:B] = pp[:B][order]
         out = extend_from_coords(self.dfm, self._qd, jnp.asarray(cc), Q, T,
                                  jnp.asarray(pp), opt.o_del, opt.e_del,
-                                 opt.o_ins, opt.e_ins, self.ext_ab,
-                                 self.mat55d)
-        if self.ext_ab is not None:
-            res = np.asarray(out).T[:, :6].astype(np.int32)
-        else:
-            res = np.stack([np.asarray(x) for x in out],
-                           axis=1).astype(np.int32)
-        inv = np.empty(B, np.int64)
-        inv[order] = np.arange(B)
-        return res[inv]
+                                 opt.o_ins, opt.e_ins, self.mat55d)
+        return np.stack([np.asarray(x) for x in out],
+                        axis=1)[:B].astype(np.int32)
 
     def _ext_rows(self, coords, params):
         """Device extension rounds for the C chain session: returns
@@ -246,14 +238,12 @@ class DeviceAligner:
         has = np.zeros(B, np.uint8)
         if B == 0:
             return out_r, has
-        # Heterogeneous scheduling default: with the C record runtime active,
-        # the banded extensions run scalar in C (no bits -> C computes every
-        # DP). The chip's time goes entirely to seeding/SA — its actual
-        # bottleneck stage — and the extension stage loses two device
-        # round trips per microbatch while overlapping other workers'
-        # device batches on real cores. MPIBWA_EXT=device|xla|pallas keeps
-        # the batched device kernels (byte-identical, diff-tested).
-        if os.environ.get("MPIBWA_EXT", "native") in ("native", "auto"):
+        # Default: with the C record runtime active, the banded extensions
+        # run scalar in C (no bits -> C computes every DP) on the host
+        # cores while the device seeds. MPIBWA_EXT=device runs them as the
+        # batched XLA DP instead (byte-identical, diff-tested). Which one
+        # wins on the H100 is not measured yet.
+        if os.environ.get("MPIBWA_EXT", "native") != "device":
             return out_r, has
         qcap, tcap = self.Q_BUCKETS[-1], self.T_BUCKETS[-1]
         small = np.nonzero((coords[:, 2] <= qcap)
@@ -288,11 +278,13 @@ class DeviceAligner:
 
         t = self.stats.setdefault("t", {})
         t0 = _time.time()
-        got = self.seeder.collect_flat([s.seq for s in seqs])
+        with self._on_device():
+            got = self.seeder.collect_flat([s.seq for s in seqs])
         qd = self.seeder.last_qd
         if got is None:  # backward overflow: the exact list path handles it
             return None
-        resolve = self._sa_prefetch(got[0])
+        with self._on_device():
+            resolve = self._sa_prefetch(got[0])
         t["seed"] = t.get("seed", 0) + _time.time() - t0
         return got, qd, resolve
 
@@ -427,40 +419,12 @@ class DeviceAligner:
     # -- phase 4: optimistic batched extension ------------------------------
 
     def _ext_coords_run(self, coords, params, maxq, maxt):
-        """coords: (B,6) int32 rows; params: (B,4). Returns list of tuples."""
-        import jax.numpy as jnp
-
-        from mpibwa_tpu.ops.extend_batch import extend_from_coords
-
-        opt = self.opt
-        B = len(coords)
-        if B == 0:
+        """coords: (B,6) rows; params: (B,4). Returns list of tuples."""
+        if not len(coords):
             return []
-        Q = _round_up(maxq, self.Q_BUCKETS)
-        T = _round_up(maxt, self.T_BUCKETS)
-        Bp = 1 << max(4, (B - 1).bit_length())
-        c = np.zeros((Bp, 6), np.int64)  # int64: r_start is a doubled coord
-        p = np.zeros((Bp, 4), np.int32)
-        p[:, 3] = 1  # dummy h0 > 0
-        c[:, 2] = 1  # dummy qlen
-        c[: B] = coords
-        p[: B] = params
-        # group similar target lengths so each Pallas lane-block's row loop
-        # exits as early as its longest problem allows
-        order = np.argsort(c[:B, 5], kind="stable")
-        c[:B] = c[:B][order]
-        p[:B] = p[:B][order]
-        out = extend_from_coords(self.dfm, self._qd, jnp.asarray(c), Q, T,
-                                 jnp.asarray(p), opt.o_del, opt.e_del,
-                                 opt.o_ins, opt.e_ins, self.ext_ab,
-                                 self.mat55d)
-        if self.ext_ab is not None:  # packed (8, Bp): one device->host pull
-            res = np.asarray(out).T[:, :6]
-        else:
-            res = np.stack([np.asarray(x) for x in out], axis=1)
-        inv = np.empty(B, np.int64)
-        inv[order] = np.arange(B)
-        return [tuple(int(v) for v in res[inv[i]]) for i in range(B)]
+        res = self._ext_rows_run(np.asarray(coords, np.int64),
+                                 np.asarray(params, np.int32), maxq, maxt)
+        return [tuple(int(v) for v in r) for r in res]
 
     def _precompute_extensions(self, chains_per_read, qs_per_read, cache: _ExtCache):
         opt = self.opt
@@ -590,6 +554,7 @@ class DeviceAligner:
 
     # -- the public entry ----------------------------------------------------
 
+    # output-invariant (see align_regs); untuned on the H100
     MICROBATCH = int(__import__("os").environ.get("MPIBWA_MICROBATCH", "16384"))
 
     def align_regs(self, seqs: List[BSeq]) -> List[List[R.AlnReg]]:
@@ -719,6 +684,10 @@ class DeviceAligner:
 
     def process_seqs(self, seqs: List[BSeq], n_processed: int = 0,
                      pes0=None, rg_id: str = "") -> None:
+        with self._on_device():
+            self._process_seqs(seqs, n_processed, pes0, rg_id)
+
+    def _process_seqs(self, seqs, n_processed, pes0, rg_id) -> None:
         from mpibwa_tpu.core.cigar import set_cigar_cache
 
         opt, refs = self.opt, self.refs
@@ -835,6 +804,7 @@ def precompute_cigars(opt, refs, qs_per_read, regs_per_read, dfm=None,
     returns the cigar cache dict consumed by core.cigar.gen_cigar."""
     import jax.numpy as jnp
 
+    from mpibwa_tpu.ops.extend_batch import standard_mat_ab
     from mpibwa_tpu.ops.global_batch import (cigar_from_ops,
                                               global_from_coords,
                                               traceback_batch)
@@ -877,14 +847,12 @@ def precompute_cigars(opt, refs, qs_per_read, regs_per_read, dfm=None,
             ws[i] = w
         qlens = cds[:, 2].copy()
         tlens = cds[:, 5].copy()
-        from mpibwa_tpu.ops.pallas_extend import standard_mat_ab
-
         out = global_from_coords(dfm, qd, jnp.asarray(cds), Q, T,
                                  jnp.asarray(ws), opt.o_del, opt.e_del,
                                  opt.o_ins, opt.e_ins,
                                  standard_mat_ab(opt.mat), mat55d)
         # traceback on device: pull (B, T+Q) op rows, not (B, T, Q)
-        # matrices; the three small outputs ride ONE pull (link latency)
+        # matrices; the three small outputs ride ONE pull
         ops_d, irem_d, krem_d = traceback_batch(out.z, jnp.asarray(qlens),
                                                 jnp.asarray(tlens),
                                                 jnp.asarray(ws))

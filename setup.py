@@ -11,9 +11,10 @@ from setuptools import find_packages, setup
 setup(
     name="mpibwa-tpu",
     version="0.1.0",
-    description="TPU-native BWA-MEM-class read aligner (JAX/XLA/Pallas)",
+    description="BWA-MEM-class read aligner on a GPU (JAX/XLA)",
     packages=find_packages(include=["mpibwa_tpu", "mpibwa_tpu.*"]),
-    package_data={"mpibwa_tpu.native": ["*.c"]},
+    package_data={"mpibwa_tpu.native": ["*.c", "*.h"],
+                  "mpibwa_tpu.io": ["hcc1187c_quals.txt.gz"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={

@@ -1,16 +1,13 @@
-"""TPU-backend identity slice at GRCh38 scale (>= 2^31 positions).
+"""GPU identity slice at GRCh38 scale (>= 2^31 positions).
 
 Run OUTSIDE pytest (tests/conftest.py pins the CPU backend process-wide):
     python tests/hw_huge_identity.py <prefix> <reads.fastq> <want.sam>
 
-Loads a >= 2^31-position index onto the REAL TPU chip (int64 position
-path), aligns the reads through the default device engines, and
-byte-compares the SAM to the oracle output the caller produced. Prints
-the measured device-resident index bytes. Exit codes: 0 identity, 77 no
-TPU backend (skip), 1 mismatch/failure. This is the on-hardware half of
-BASELINE config 3 (reference scale evidence: the 352-rank WGS run,
-/root/reference/CHANGELOG:228-233); the HBM budget projection rides in
-every bench run (bench.py "hbm" field).
+Loads a >= 2^31-position index onto the GPU (int64 position path),
+aligns the reads through the default device engines, and byte-compares
+the SAM to the oracle output the caller produced. Prints the measured
+device-resident index bytes. Exit codes: 0 identity, 2 no GPU, 1
+mismatch/failure. This is the on-hardware half of BASELINE config 3.
 """
 
 import sys
@@ -22,9 +19,10 @@ def main() -> int:
     prefix, fq, want_path = sys.argv[1], sys.argv[2], sys.argv[3]
     import jax
 
-    if jax.default_backend() in ("cpu",):
-        print("SKIP: no TPU backend", file=sys.stderr)
-        return 77
+    if jax.default_backend() != "gpu":
+        print(f"no GPU: JAX backend is {jax.default_backend()}",
+              file=sys.stderr)
+        return 2
     import jax.numpy as jnp
 
     from mpibwa_tpu.core.opts import mem_opt_init

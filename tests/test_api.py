@@ -5,12 +5,11 @@ import numpy as np
 from mpibwa_tpu.api import Aligner
 from mpibwa_tpu.io.fastq import read_fastq
 
-from conftest import fastq_path
 
 
-def test_align1_and_smem_iter(index):
+def test_align1_and_smem_iter(index, r1_path):
     al = Aligner(index)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=8)
+    reads = read_fastq(r1_path, limit=8)
     n_mapped = 0
     for s in reads:
         seq = "".join("ACGTN"[min(c, 4)] for c in s.seq)

@@ -1,6 +1,5 @@
 """Device (JAX) kernels vs the exact scalar engine."""
 
-import jax
 import numpy as np
 import pytest
 
@@ -8,8 +7,6 @@ from mpibwa_tpu.core.chain import collect_intv
 from mpibwa_tpu.core.fm import FMIndex
 from mpibwa_tpu.core.opts import mem_opt_init
 from mpibwa_tpu.io.fastq import read_fastq
-
-from conftest import fastq_path
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +24,7 @@ def fm(index):
 def test_device_occ4(dfm, fm):
     import jax.numpy as jnp
 
-    ks = np.arange(-1, 1342501, 311, dtype=np.int64)
+    ks = np.arange(-1, fm.seq_len + 1, 2311, dtype=np.int64)
     got = np.asarray(dfm.occ4(jnp.asarray(ks)))
     want = fm.occ4_batch(ks)
     np.testing.assert_array_equal(got, want)
@@ -36,7 +33,7 @@ def test_device_occ4(dfm, fm):
 def test_device_sa(dfm, fm):
     import jax.numpy as jnp
 
-    ks = np.arange(0, 1342501, 307, dtype=np.int64)
+    ks = np.arange(0, fm.seq_len + 1, 3307, dtype=np.int64)
     got = np.asarray(dfm.sa_lookup(jnp.asarray(ks))).astype(np.uint64)
     want = np.array([np.uint64(fm.sa_lookup(int(k))) for k in ks], dtype=np.uint64)
     np.testing.assert_array_equal(got, want)
@@ -59,12 +56,12 @@ def test_device_extend_matches_scalar(dfm, fm):
             np.testing.assert_array_equal(got[i], np.array(want))
 
 
-def test_device_collect_intv(dfm, fm, index):
+def test_device_collect_intv(dfm, fm, index, r1_path):
     from mpibwa_tpu.pipeline.device_seed import DeviceSeeder
 
     opt = mem_opt_init()
     seeder = DeviceSeeder(dfm, opt)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=48)
+    reads = read_fastq(r1_path, limit=48)
     got, fallback = seeder.collect_batch([s.seq for s in reads])
     n_checked = 0
     for i, s in enumerate(reads):
@@ -76,10 +73,10 @@ def test_device_collect_intv(dfm, fm, index):
     assert n_checked >= 40  # nearly all reads must take the device path
 
 
-@pytest.mark.parametrize("mode", ["contig", "pallas_interp", "v8"])
-def test_backward_engines_match_scalar(dfm, fm, mode, monkeypatch):
-    """Every backward-SMEM engine (XLA contig, fused Pallas round kernel,
-    v8 minimal-gather) must reproduce the scalar bwt_smem1a emission
+@pytest.mark.parametrize("mode", ["contig", "flat", "v8"])
+def test_backward_engines_match_scalar(dfm, fm, mode, monkeypatch, r1_path):
+    """Every backward-SMEM engine (XLA contig, exact flat, v8
+    minimal-gather) must reproduce the scalar bwt_smem1a emission
     exactly (bwt.c:289-351). v8 does not maintain x[1] (consumed by
     nothing downstream — see ops/backward8.py) so it is compared on
     (x0, x2, info)."""
@@ -88,7 +85,7 @@ def test_backward_engines_match_scalar(dfm, fm, mode, monkeypatch):
     monkeypatch.setenv("MPIBWA_BWD", mode)
     opt = mem_opt_init()
     seeder = DeviceSeeder(dfm, opt)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=32)
+    reads = read_fastq(r1_path, limit=32)
     got, fallback = seeder.collect_batch([s.seq for s in reads])
 
     def key(ivs):
@@ -106,32 +103,7 @@ def test_backward_engines_match_scalar(dfm, fm, mode, monkeypatch):
     assert n_checked >= 28
 
 
-@pytest.mark.skipif(
-    jax.default_backend() in ("cpu",),
-    reason="compiled Mosaic path needs a TPU backend (interpret-mode "
-    "coverage lives in test_backward_engines_match_scalar[pallas_interp])",
-)
-def test_backward_pallas_compiled_tpu(dfm, fm, monkeypatch):
-    """Opt-in hardware check: MPIBWA_BWD=pallas (compiled Mosaic kernel,
-    not interpret mode) reproduces scalar bwt_smem1a emission on a real
-    TPU backend."""
-    from mpibwa_tpu.pipeline.device_seed import DeviceSeeder
-
-    monkeypatch.setenv("MPIBWA_BWD", "pallas")
-    opt = mem_opt_init()
-    seeder = DeviceSeeder(dfm, opt)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=16)
-    got, _ = seeder.collect_batch([s.seq for s in reads])
-    n_checked = 0
-    for i, s in enumerate(reads):
-        if got[i] is None:
-            continue
-        assert got[i] == collect_intv(opt, fm, s.seq), f"mismatch {s.name}"
-        n_checked += 1
-    assert n_checked >= 14
-
-
-def test_v8_shrink_schedule_exact(dfm, fm, monkeypatch):
+def test_v8_shrink_schedule_exact(dfm, fm, monkeypatch, r1_path):
     """The v8 static shrink schedule (compact + halve, overflow flags) must
     not change results; force it to run by shrinking the tail threshold."""
     from mpibwa_tpu.ops import backward8 as B8
@@ -142,7 +114,7 @@ def test_v8_shrink_schedule_exact(dfm, fm, monkeypatch):
     monkeypatch.setattr(B8, "SEG_ROUNDS", 2)
     opt = mem_opt_init()
     seeder = DeviceSeeder(dfm, opt)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=24)
+    reads = read_fastq(r1_path, limit=24)
     got, _ = seeder.collect_batch([s.seq for s in reads])
     for i, s in enumerate(reads):
         if got[i] is None:
@@ -152,7 +124,7 @@ def test_v8_shrink_schedule_exact(dfm, fm, monkeypatch):
             [(iv[0], iv[2], iv[3]) for iv in want], s.name
 
 
-def test_microbatch_boundary_identity(dfm, index, golden_dir):
+def test_microbatch_boundary_identity(dfm, index, r1_path):
     """Batches crossing the internal microbatch size must not change output
     (regression: the cigar precompute once used stale device rows)."""
     from mpibwa_tpu.core.opts import mem_opt_init
@@ -160,37 +132,12 @@ def test_microbatch_boundary_identity(dfm, index, golden_dir):
 
     al = DeviceAligner(index, mem_opt_init())
     al.MICROBATCH = 64  # force several microbatches on a small read count
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=150)
+    reads = read_fastq(r1_path, limit=150)
     al.process_seqs(reads, n_processed=0)
     got = "".join(s.sam for s in reads)
-    names = {s.name for s in reads}
-    want = "".join(l for l in (golden_dir / "se_1k.sam").read_text()
-                   .splitlines(keepends=True) if l.split("\t", 1)[0] in names)
-    assert got == want
-
-
-def test_pallas_extend_matches_xla(dfm, index):
-    """The fused Pallas occ4/extend kernel (interpret mode on CPU) must
-    match the XLA path bit-for-bit."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from mpibwa_tpu.ops.pallas_occ4 import BE, extend_pallas
-
-    rng = np.random.default_rng(11)
-    E = 2 * BE
-    x0 = rng.integers(1, index.seq_len, E)
-    x2 = rng.integers(1, 64, E)
-    x2 = np.minimum(x2, index.seq_len - x0 + 1)
-    ik = np.stack([x0, rng.integers(1, index.seq_len, E), x2],
-                  axis=1).astype(np.int32)
-    # include sentinel-triggering rows (k-1 < 0)
-    ik[:4, 0] = 1
-    ik_d = jnp.asarray(ik)
-    for is_back in (1, 0):
-        want = np.asarray(dfm.extend(ik_d, is_back))
-        got = np.asarray(extend_pallas(dfm, ik_d, is_back, True))
-        np.testing.assert_array_equal(got, want)
+    whole = read_fastq(r1_path, limit=150)
+    DeviceAligner(index, mem_opt_init()).process_seqs(whole, n_processed=0)
+    assert got == "".join(s.sam for s in whole)
 
 
 # -- int64 (GRCh38-scale) position path, forced on the small index ----------
@@ -199,8 +146,8 @@ def test_pallas_extend_matches_xla(dfm, index):
 @pytest.fixture(scope="module")
 def dfm_wide(index):
     """The same index through the int64 position path (force_wide): the
-    engines a doubled genome >= 2^31 takes (full human = 6.2e9 positions,
-    /root/reference/CHANGELOG:228-233). Counts/gathers stay int32; only
+    engines a doubled genome >= 2^31 takes (full human = 6.2e9
+    positions). Counts/gathers stay int32; only
     position arithmetic widens, so every result must be bit-identical to
     the int32 path / scalar engine."""
     from mpibwa_tpu.ops.fmd import DeviceFMIndex
@@ -212,17 +159,17 @@ def test_wide_occ4_and_sa(dfm_wide, fm):
     import jax.numpy as jnp
 
     assert dfm_wide.idt == jnp.int64
-    ks = np.arange(-1, 1342501, 311, dtype=np.int64)
+    ks = np.arange(-1, fm.seq_len + 1, 2311, dtype=np.int64)
     got = np.asarray(dfm_wide.occ4_16(jnp.asarray(ks)))
     np.testing.assert_array_equal(got, fm.occ4_batch(ks))
-    ks = np.arange(0, 1342501, 307, dtype=np.int64)
+    ks = np.arange(0, fm.seq_len + 1, 3307, dtype=np.int64)
     got = np.asarray(dfm_wide.sa_lookup(jnp.asarray(ks))).astype(np.uint64)
     want = np.array([np.uint64(fm.sa_lookup(int(k))) for k in ks],
                     dtype=np.uint64)
     np.testing.assert_array_equal(got, want)
 
 
-def test_wide_v8_backward_matches_scalar(dfm_wide, fm, monkeypatch):
+def test_wide_v8_backward_matches_scalar(dfm_wide, fm, monkeypatch, r1_path):
     """v8 with int64 positions (the GRCh38-scale engine) reproduces scalar
     bwt_smem1a emission on (x0, x2, info) exactly (bwt.c:289-351)."""
     from mpibwa_tpu.pipeline.device_seed import DeviceSeeder
@@ -230,7 +177,7 @@ def test_wide_v8_backward_matches_scalar(dfm_wide, fm, monkeypatch):
     monkeypatch.setenv("MPIBWA_BWD", "v8")
     opt = mem_opt_init()
     seeder = DeviceSeeder(dfm_wide, opt)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=32)
+    reads = read_fastq(r1_path, limit=32)
     got, fallback = seeder.collect_batch([s.seq for s in reads])
     n_checked = 0
     for i, s in enumerate(reads):
@@ -243,14 +190,14 @@ def test_wide_v8_backward_matches_scalar(dfm_wide, fm, monkeypatch):
     assert n_checked >= 28
 
 
-def test_wide_collect_flat_rows(dfm_wide, dfm, monkeypatch):
+def test_wide_collect_flat_rows(dfm_wide, dfm, monkeypatch, r1_path):
     """The arrays-end-to-end seeder through the wide engines returns the
     same flat interval rows as the int32 path (row-for-row)."""
     from mpibwa_tpu.pipeline.device_seed import DeviceSeeder
 
     monkeypatch.setenv("MPIBWA_BWD", "v8")
     opt = mem_opt_init()
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=48)
+    reads = read_fastq(r1_path, limit=48)
     qs = [s.seq for s in reads]
     out32 = DeviceSeeder(dfm, opt).collect_flat(qs)
     out64 = DeviceSeeder(dfm_wide, opt).collect_flat(qs)
@@ -260,7 +207,7 @@ def test_wide_collect_flat_rows(dfm_wide, dfm, monkeypatch):
     np.testing.assert_array_equal(out32[2], out64[2])
 
 
-def test_v8_schedule_replay_and_retry(dfm, fm, monkeypatch):
+def test_v8_schedule_replay_and_retry(dfm, fm, monkeypatch, r1_path):
     """The learned-schedule replay (second run of a shape: no live-count
     syncs) must emit exactly what the adaptive first run did; a poisoned
     (too-small) schedule must be invalidated and redone adaptively, not
@@ -274,7 +221,7 @@ def test_v8_schedule_replay_and_retry(dfm, fm, monkeypatch):
     B8.SCHED_CACHE.clear()
     opt = mem_opt_init()
     seeder = DeviceSeeder(dfm, opt)
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=24)
+    reads = read_fastq(r1_path, limit=24)
     qs = [s.seq for s in reads]
     first, _ = seeder.collect_batch(qs)   # adaptive (records schedules)
     assert B8.SCHED_CACHE, "adaptive run should record schedules"
@@ -297,7 +244,7 @@ def test_v8_schedule_replay_and_retry(dfm, fm, monkeypatch):
     assert any(v != (256,) for v in B8.SCHED_CACHE.values())
 
 
-def test_p2_speculative_matches_sync(dfm, monkeypatch):
+def test_p2_speculative_matches_sync(dfm, monkeypatch, r1_path):
     """The sync-free pass-2 route (device-built lane tables, speculative
     entry capacity — activates once the seeder has an estimate, i.e. from
     the second batch) must return exactly the synchronous route's rows,
@@ -307,7 +254,7 @@ def test_p2_speculative_matches_sync(dfm, monkeypatch):
 
     monkeypatch.setenv("MPIBWA_BWD", "v8")
     opt = mem_opt_init()
-    reads = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=64)
+    reads = read_fastq(r1_path, limit=64)
     qs = [s.seq for s in reads]
     base = DeviceSeeder(dfm, opt)
     want = base.collect_flat(qs)  # first batch: synchronous route
@@ -327,12 +274,14 @@ def test_p2_speculative_matches_sync(dfm, monkeypatch):
     orig_bucket = B8.cap_bucket
     calls = {"n": 0}
 
+    spec_n = max(real_e * 5 // 4, 1024)  # the speculative-cap request
+
     def tiny_bucket(n, floor=B8.MIN_CAP):
-        # poison ONLY the speculative-cap call (floor=1024, small n —
-        # pass 1's exact pad uses the same floor but n in the thousands);
-        # shrinking an EXACT pad would violate a production invariant
-        # (cap_bucket always returns >= n there)
-        if floor == 1024 and n <= 1024 and calls["n"] == 0:
+        # poison ONLY the speculative-cap call (pass 1's exact pad uses
+        # the same floor, with its own entry count); shrinking an EXACT
+        # pad would violate a production invariant (cap_bucket always
+        # returns >= n there)
+        if floor == 1024 and n == spec_n and calls["n"] == 0:
             calls["n"] += 1
             return 8
         return orig_bucket(n, floor)

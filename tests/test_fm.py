@@ -1,4 +1,5 @@
-"""FM-index engine vs oracle golden fixtures (occ/sa/smem)."""
+"""FM-index engine vs oracle golden fixtures (occ/sa/smem, on the
+hg19.small index they were made from) and device vs host rank paths."""
 
 import numpy as np
 import pytest
@@ -7,12 +8,10 @@ from mpibwa_tpu.core.fm import FMIndex
 from mpibwa_tpu.core.sortutil import ks_introsort
 from mpibwa_tpu.index.format import NT4_TABLE
 
-from conftest import fastq_path
-
 
 @pytest.fixture(scope="module")
-def fm(index):
-    return FMIndex.from_index(index)
+def fm(golden_index):
+    return FMIndex.from_index(golden_index)
 
 
 def read_fastq_names_seqs(path, limit=None):
@@ -84,8 +83,9 @@ def collect_seeds(fm, q, opt_min_seed_len=19, split_factor=1.5, split_width=10,
     return mem
 
 
-def test_smem_vs_golden(fm, golden_dir):
-    reads = read_fastq_names_seqs(fastq_path("HCC1187C_R1_10K.fastq"), limit=1000)
+def test_smem_vs_golden(fm, golden_dir, golden_fastq):
+    reads = read_fastq_names_seqs(golden_fastq("HCC1187C_R1_10K.fastq"),
+                                  limit=1000)
     golden = {}
     with open(golden_dir / "smem_1k.txt") as f:
         lines = f.read().splitlines()

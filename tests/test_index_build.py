@@ -17,13 +17,13 @@ def test_lrand48_sequence():
 
 
 @pytest.mark.slow
-def test_build_matches_bwa_index(idx_prefix, tmp_path):
+def test_build_matches_bwa_index(golden_prefix, tmp_path):
     """All five artifacts byte-identical to the bwa-0.7.17 built files."""
-    fasta = idx_prefix  # /tmp/ref/hg19.small.fa (the FASTA itself)
     out = str(tmp_path / "built.fa")
-    build_index(fasta, prefix=out)
+    build_index(golden_prefix, prefix=out)  # the FASTA ships with them
     for ext in (".pac", ".ann", ".amb", ".bwt", ".sa"):
-        assert filecmp.cmp(out + ext, idx_prefix + ext, shallow=False), ext
+        assert filecmp.cmp(out + ext, golden_prefix + ext,
+                           shallow=False), ext
 
 
 def test_build_small_synthetic(tmp_path):

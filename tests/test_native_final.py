@@ -18,7 +18,6 @@ from mpibwa_tpu.core.opts import MEM_F_PE, fill_scmat, mem_opt_init
 from mpibwa_tpu.io.fastq import interleave, read_fastq
 from mpibwa_tpu.native import get_lib
 
-from conftest import fastq_path
 
 P = ctypes.c_void_p
 
@@ -104,17 +103,17 @@ def _run_both(al, seqs_native, seqs_python, **kw):
         assert a.sam == b.sam, (a.name, a.sam, b.sam)
 
 
-def test_batch_se_native_vs_python(lib, index):
+def test_batch_se_native_vs_python(lib, index, r1_path):
     from mpibwa_tpu.pipeline.device_align import DeviceAligner
 
     opt = mem_opt_init()
     al = DeviceAligner(index, opt)
-    n1 = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=300)
-    n2 = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=300)
+    n1 = read_fastq(r1_path, limit=300)
+    n2 = read_fastq(r1_path, limit=300)
     _run_both(al, n1, n2, n_processed=17)
 
 
-def test_batch_pe_native_vs_python(lib, index):
+def test_batch_pe_native_vs_python(lib, index, r1_path, r2_path):
     from mpibwa_tpu.pipeline.device_align import DeviceAligner
 
     opt = mem_opt_init()
@@ -122,14 +121,14 @@ def test_batch_pe_native_vs_python(lib, index):
     al = DeviceAligner(index, opt)
 
     def load():
-        r1 = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=300)
-        r2 = read_fastq(fastq_path("HCC1187C_R2_10K.fastq"), limit=300)
+        r1 = read_fastq(r1_path, limit=300)
+        r2 = read_fastq(r2_path, limit=300)
         return interleave(r1, r2)
 
     _run_both(al, load(), load(), n_processed=0)
 
 
-def test_batch_native_chain_vs_python_chain(lib, index):
+def test_batch_native_chain_vs_python_chain(lib, index, r1_path, r2_path):
     """The all-C record path (fin_chain_* session + fin_batch) must equal
     the Python chain + native-final path byte for byte, SE and PE."""
     from mpibwa_tpu.pipeline.device_align import DeviceAligner
@@ -141,10 +140,10 @@ def test_batch_native_chain_vs_python_chain(lib, index):
         al = DeviceAligner(index, opt)
 
         def load():
-            r1 = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=240)
+            r1 = read_fastq(r1_path, limit=240)
             if not pe:
                 return r1
-            r2 = read_fastq(fastq_path("HCC1187C_R2_10K.fastq"), limit=240)
+            r2 = read_fastq(r2_path, limit=240)
             return interleave(r1, r2)
 
         a = load()
@@ -163,7 +162,7 @@ def test_batch_native_chain_vs_python_chain(lib, index):
             assert x.sam == y.sam, (pe, x.name, x.sam, y.sam)
 
 
-def test_native_ext_matches_device_ext(lib, index):
+def test_native_ext_matches_device_ext(lib, index, r1_path):
     """MPIBWA_EXT=native (every extension DP scalar in C) must equal the
     device-extension path byte for byte."""
     import os as _os
@@ -172,8 +171,8 @@ def test_native_ext_matches_device_ext(lib, index):
 
     opt = mem_opt_init()
     al = DeviceAligner(index, opt)
-    a = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=200)
-    b = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=200)
+    a = read_fastq(r1_path, limit=200)
+    b = read_fastq(r1_path, limit=200)
     _os.environ["MPIBWA_EXT"] = "device"  # batched device kernels
     try:
         al.process_seqs(a, n_processed=3)
@@ -184,7 +183,8 @@ def test_native_ext_matches_device_ext(lib, index):
         assert x.sam == y.sam, (x.name,)
 
 
-def test_parallel_chain_finalize_identity(lib, index, monkeypatch):
+def test_parallel_chain_finalize_identity(lib, index, monkeypatch, r1_path,
+                                          r2_path):
     """Splitting a batch across concurrent C chain sessions and
     pair-aligned C finalize ranges (native_final._core_share fan-out)
     must be byte-identical to the single-session path."""
@@ -193,8 +193,8 @@ def test_parallel_chain_finalize_identity(lib, index, monkeypatch):
 
     opt = mem_opt_init()
     opt.flag |= MEM_F_PE
-    r1 = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=600)
-    r2 = read_fastq(fastq_path("HCC1187C_R2_10K.fastq"), limit=600)
+    r1 = read_fastq(r1_path, limit=600)
+    r2 = read_fastq(r2_path, limit=600)
     seqs = interleave(r1, r2)
     al = DeviceAligner(index, opt)
     al.process_seqs(seqs, n_processed=0)  # 1200 < _MIN_SPLIT: single path
@@ -208,8 +208,8 @@ def test_parallel_chain_finalize_identity(lib, index, monkeypatch):
     assert [s.sam for s in seqs] == want
 
 
-def test_collect_flat_v8_raw_speculative(lib, index, monkeypatch):
-    """The v8 raw row path (normally TPU-only) must produce the same
+def test_collect_flat_v8_raw_speculative(lib, index, monkeypatch, r1_path):
+    """The v8 raw row path (the GPU engine) must produce the same
     pre-sort stream as the flat engine, through BOTH speculative-pull
     branches: the single-pull hit (generous est_rows) and the
     underestimate that pays a second full pull (est_rows forced to 1).
@@ -221,7 +221,7 @@ def test_collect_flat_v8_raw_speculative(lib, index, monkeypatch):
     opt = mem_opt_init()
     al = DeviceAligner(index, opt)
     qs = [s.seq for s in
-          read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=96)]
+          read_fastq(r1_path, limit=96)]
     ref = al.seeder.collect_flat(qs)  # default engine on CPU: flat
     assert ref is not None
     key = [0, 2, 3]
@@ -242,7 +242,7 @@ def test_collect_flat_v8_raw_speculative(lib, index, monkeypatch):
     assert (got2[1] == ref[1]).all()
 
 
-def test_collect_flat_matches_list_path(lib, index):
+def test_collect_flat_matches_list_path(lib, index, r1_path):
     """The arrays-end-to-end seeder (collect_flat) must produce row-for-row
     the same pre-sort interval stream as the per-read list path."""
     from mpibwa_tpu.pipeline.device_align import DeviceAligner
@@ -250,7 +250,7 @@ def test_collect_flat_matches_list_path(lib, index):
     opt = mem_opt_init()
     al = DeviceAligner(index, opt)
     qs = [s.seq for s in
-          read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=500)]
+          read_fastq(r1_path, limit=500)]
     got = al.seeder.collect_flat(qs)
     assert got is not None
     flat, mem_off, fb = got

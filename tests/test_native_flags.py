@@ -12,7 +12,6 @@ from mpibwa_tpu.core.opts import mem_opt_init
 from mpibwa_tpu.io.fastq import interleave, read_fastq
 from mpibwa_tpu.native import get_lib
 
-from conftest import fastq_path
 
 CASES = [
     ("all", O.MEM_F_ALL, ""),
@@ -34,19 +33,21 @@ def lib():
     return lib
 
 
-def _load(pe, n=120, comments=False):
-    r1 = read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=n,
-                    copy_comment=comments)
-    if not pe:
-        return r1
-    r2 = read_fastq(fastq_path("HCC1187C_R2_10K.fastq"), limit=n,
-                    copy_comment=comments)
-    return interleave(r1, r2)
+@pytest.fixture(scope="module")
+def _load(r1_path, r2_path):
+    def load(pe, n=120, comments=False):
+        r1 = read_fastq(r1_path, limit=n, copy_comment=comments)
+        if not pe:
+            return r1
+        r2 = read_fastq(r2_path, limit=n, copy_comment=comments)
+        return interleave(r1, r2)
+
+    return load
 
 
 @pytest.mark.parametrize("pe", [False, True])
 @pytest.mark.parametrize("name,flag,rg", CASES, ids=[c[0] for c in CASES])
-def test_flag_native_vs_python(lib, index, pe, name, flag, rg):
+def test_flag_native_vs_python(lib, index, _load, pe, name, flag, rg):
     from mpibwa_tpu.pipeline.device_align import DeviceAligner
 
     opt = mem_opt_init()
@@ -73,7 +74,7 @@ def test_flag_native_vs_python(lib, index, pe, name, flag, rg):
         assert x.sam == y.sam, (name, pe, x.name, x.sam, y.sam)
 
 
-def test_pes0_override_native_vs_python(lib, index):
+def test_pes0_override_native_vs_python(lib, index, _load):
     """-I explicit insert stats (pes0) must flow through the native path
     identically (skips pestat entirely, like mainParallel.c's -I)."""
     from mpibwa_tpu.core.pair import PEStat

@@ -12,7 +12,6 @@ from mpibwa_tpu.io.bgzf import BGZF_EOF, BGZFWriter, bgzf_block
 from mpibwa_tpu.io.headers import bwa_set_rg, make_pg_line, sam_header
 from mpibwa_tpu.parallel.chunker import chunk_pe, chunk_se
 
-from conftest import fastq_path
 
 
 def test_chunker_boundaries():
@@ -106,7 +105,7 @@ def test_headers():
         bwa_set_rg("ID:missing-at-rg")
 
 
-def test_fixmate_vs_oracle(engines_or_none, index, golden_dir):
+def test_fixmate_vs_oracle(golden_index, golden_dir, golden_fastq):
     """Our fixmate over our PE output must equal the oracle's fixmate over
     the reference engine's PE output (both engines already byte-identical)."""
     from mpibwa_tpu.core.fm import FMIndex
@@ -119,14 +118,15 @@ def test_fixmate_vs_oracle(engines_or_none, index, golden_dir):
     golden = golden_dir / "pe_1k_fixmate.sam"
     if not golden.exists():
         pytest.skip("fixmate golden not generated")
-    fm, refs = FMIndex.from_index(index), RefSeq(index)
+    fm, refs = FMIndex.from_index(golden_index), RefSeq(golden_index)
     opt = mem_opt_init()
     opt.flag |= MEM_F_PE
     n = 1000
-    seqs = interleave(read_fastq(fastq_path("HCC1187C_R1_10K.fastq"), limit=n),
-                      read_fastq(fastq_path("HCC1187C_R2_10K.fastq"), limit=n))
+    seqs = interleave(
+        read_fastq(golden_fastq("HCC1187C_R1_10K.fastq"), limit=n),
+        read_fastq(golden_fastq("HCC1187C_R2_10K.fastq"), limit=n))
     process_seqs(opt, fm, refs, seqs)
-    apply_fixmate(seqs, index.anns)
+    apply_fixmate(seqs, golden_index.anns)
     got = "".join(s.sam for s in seqs)
     want = golden.read_text()
     if got != want:
@@ -135,22 +135,18 @@ def test_fixmate_vs_oracle(engines_or_none, index, golden_dir):
         assert False, "line count mismatch"
 
 
-@pytest.fixture(scope="module")
-def engines_or_none():
-    return None
-
-
 def test_bychr_routing(index):
     from mpibwa_tpu.io.bychr import ByChrRouter
 
     r = ByChrRouter(index.anns, dofixmate=False)
-    assert r.files == ["chr1", "discordant", "unmapped"]
+    names = [a.name for a in index.anns]
+    assert r.files == names + ["discordant", "unmapped"]
     text = ("r1\t0\tchr1\t10\t60\t5M\t=\t20\t15\tACGTA\tIIIII\n"
             "r2\t4\t*\t0\t0\t*\t*\t0\t0\tACGTA\tIIIII\n")
     routed = r.route_text(text)
     assert [l.split("\t")[0] for l in routed[0]] == ["r1"]
-    assert [l.split("\t")[0] for l in routed[2]] == ["r2"]
-    # single-contig index cannot produce discordant; simulate two contigs
+    assert [l.split("\t")[0] for l in routed[len(names) + 1]] == ["r2"]
+    # a mate on another contig is discordant
     class A:
         def __init__(self, n):
             self.name = n
@@ -161,26 +157,28 @@ def test_bychr_routing(index):
     assert 0 in routed and r2.disc_idx in routed
 
 
-def test_cli_se_subset(idx_prefix, tmp_path, golden_dir):
-    """Full CLI run (host engine path via device-on-CPU) on a subset."""
-    sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
-        lines = [next(f) for _ in range(400 * 4)]
-    sub.write_text("".join(lines))
+def test_cli_se_subset(idx_prefix, tmp_path, r1_path):
+    """Full CLI run (the device path, on the CPU backend here) on a subset
+    equals the exact Python engine's output."""
     from mpibwa_tpu import cli
+    from mpibwa_tpu.core.opts import mem_opt_init
+    from mpibwa_tpu.index.format import load_index
+    from mpibwa_tpu.parallel.runtime import Runtime
 
+    sub = tmp_path / "sub.fq"
+    with open(r1_path) as f:
+        lines = [next(f) for _ in range(300 * 4)]
+    sub.write_text("".join(lines))
     out = tmp_path / "out"
     rc = cli.main(["mem", "-o", str(out), idx_prefix, str(sub)])
     assert rc == 0
-    text = (tmp_path / "out.sam").read_text()
-    body = text[text.index("HSQ1003"):]
-    names = {l.split()[0][1:].split("/")[0] for l in lines[::4]}
-    want = "".join(l for l in (golden_dir / "se_1k.sam").read_text()
-                   .splitlines(keepends=True) if l.split("\t", 1)[0] in names)
-    assert body == want
+    ref = Runtime(load_index(idx_prefix), mem_opt_init(), use_device=False,
+                  verbose=False).run(str(sub), None, str(tmp_path / "ref"))
+    body = lambda p: [l for l in open(p) if not l.startswith("@")]
+    assert body(tmp_path / "out.sam") == body(ref)
 
 
-def test_shard_count_invariance(idx_prefix, tmp_path, golden_dir):
+def test_shard_count_invariance(idx_prefix, tmp_path, r1_path):
     """Chunk boundaries and merged output are invariant to shard count
     (the reference's rank-count reproducibility, CHANGELOG:180-182)."""
     from mpibwa_tpu.core.opts import mem_opt_init
@@ -188,7 +186,7 @@ def test_shard_count_invariance(idx_prefix, tmp_path, golden_dir):
     from mpibwa_tpu.parallel.runtime import Runtime, merge_shard_outputs
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(300 * 4)))
     idx = load_index(idx_prefix)
     K = 5000  # ~49 reads per chunk -> several chunks
@@ -208,7 +206,7 @@ def test_shard_count_invariance(idx_prefix, tmp_path, golden_dir):
     assert open(merged, "rb").read() == open(one, "rb").read()
 
 
-def test_multidevice_identity(idx_prefix, tmp_path, golden_dir):
+def test_multidevice_identity(idx_prefix, tmp_path, r1_path):
     """Fanning chunks out over several devices (one aligner per device,
     round-robin chunks — the mesh analog of the reference's rank-per-chunk
     scatter, mainParallel.c:1200-1260) must produce byte-identical output
@@ -220,7 +218,7 @@ def test_multidevice_identity(idx_prefix, tmp_path, golden_dir):
     from mpibwa_tpu.parallel.runtime import Runtime
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(200 * 4)))
     idx = load_index(idx_prefix)
     K = 5000  # several chunks
@@ -236,14 +234,14 @@ def test_multidevice_identity(idx_prefix, tmp_path, golden_dir):
     assert open(many, "rb").read() == open(one, "rb").read()
 
 
-def test_cli_shard_merge(idx_prefix, tmp_path, monkeypatch):
+def test_cli_shard_merge(idx_prefix, tmp_path, monkeypatch, r1_path):
     """The mpirun analog: per-shard CLI runs (MPIBWA_SHARD/NSHARDS) plus
     `cli merge` reproduce the single-process output byte-for-byte (modulo
     the @PG CL, which records each process's own argv)."""
     from mpibwa_tpu.cli import main
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(120 * 4)))
 
     out1 = tmp_path / "one"
@@ -266,32 +264,38 @@ def test_cli_shard_merge(idx_prefix, tmp_path, monkeypatch):
     assert strip(merged) == strip(str(out1) + ".sam")
 
 
-def test_cli_smart_pairing(idx_prefix, tmp_path, golden_dir):
+def test_cli_smart_pairing(idx_prefix, tmp_path, r1_path, r2_path):
     """-p with one interleaved file pairs consecutive reads: output matches
-    the R1+R2 PE golden for the same 1K-pair batch."""
+    the two-file PE run of the same pairs."""
     from mpibwa_tpu.cli import main
 
+    n = 300
     inter = tmp_path / "inter.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f1, \
-            open(fastq_path("HCC1187C_R2_10K.fastq")) as f2, \
-            open(inter, "w") as out:
-        for _ in range(1000):
-            for _ in range(4):
-                out.write(next(f1))
-            for _ in range(4):
-                out.write(next(f2))
+    p1, p2 = tmp_path / "p1.fq", tmp_path / "p2.fq"
+    with open(r1_path) as f1, open(r2_path) as f2, open(inter, "w") as out, \
+            open(p1, "w") as o1, open(p2, "w") as o2:
+        for _ in range(n):
+            a = [next(f1) for _ in range(4)]
+            b = [next(f2) for _ in range(4)]
+            out.writelines(a + b)
+            o1.writelines(a)
+            o2.writelines(b)
     out1 = tmp_path / "sp"
     assert main(["mem", "-p", "-o", str(out1), idx_prefix, str(inter)]) == 0
-    got = [l for l in open(str(out1) + ".sam") if not l.startswith("@")]
-    want = (golden_dir / "pe_1k.sam").read_text().splitlines(keepends=True)
-    assert got == want
+    out2 = tmp_path / "two"
+    assert main(["mem", "-o", str(out2), idx_prefix, str(p1), str(p2)]) == 0
+    body = lambda p: [l for l in open(p) if not l.startswith("@")]
+    got = body(str(out1) + ".sam")
+    assert len(got) >= 2 * n and got == body(str(out2) + ".sam")
 
 
-def test_native_fixmate_matches_python(index, golden_dir):
+def test_native_fixmate_matches_python(index, idx_prefix, tmp_path,
+                                       r1_path, r2_path):
     """The C fixmate (mpibwa_tpu/native/fixmate.c) must be byte-identical
-    to the Python port (the oracle-tested reference) on the golden batch."""
+    to the Python port (the oracle-tested reference) on a PE batch."""
     import itertools
 
+    from mpibwa_tpu.cli import main
     from mpibwa_tpu.io.fixmate import fixmate_pair
     from mpibwa_tpu.native import fixmate_pair_native, get_lib
 
@@ -299,8 +303,15 @@ def test_native_fixmate_matches_python(index, golden_dir):
         import pytest
 
         pytest.skip("no C compiler available")
+    n_pairs = 400
+    p1, p2 = tmp_path / "p1.fq", tmp_path / "p2.fq"
+    for src, dst in ((r1_path, p1), (r2_path, p2)):
+        with open(src) as f:
+            dst.write_text("".join(next(f) for _ in range(n_pairs * 4)))
+    assert main(["mem", "-o", str(tmp_path / "pe"), idx_prefix, str(p1),
+                 str(p2)]) == 0
     names = [a.name for a in index.anns]
-    lines = list(open(golden_dir / "pe_1k.sam"))
+    lines = [l for l in open(tmp_path / "pe.sam") if not l.startswith("@")]
     n = 0
     for qname, grp in itertools.groupby(lines,
                                         key=lambda l: l.split("\t", 1)[0]):
@@ -318,17 +329,17 @@ def test_native_fixmate_matches_python(index, golden_dir):
         res = fixmate_pair_native(g1, g2, names)
         assert res == (a.sam, b.sam), f"native fixmate differs for {qname}"
         n += 1
-    assert n == 1000
+    assert n == n_pairs
 
 
-def test_cli_launch(idx_prefix, tmp_path):
+def test_cli_launch(idx_prefix, tmp_path, r1_path):
     """One-command distribution: `launch -n 2 mem` (spawn, align, merge)
     equals the single-process run (the mpirun -n analog,
     mainParallel.c:517-519 + 1109-1123)."""
     from mpibwa_tpu.cli import main
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(120 * 4)))
     out1 = tmp_path / "one"
     assert main(["mem", "-K", "2000", "-o", str(out1), idx_prefix,
@@ -342,7 +353,7 @@ def test_cli_launch(idx_prefix, tmp_path):
     assert not (tmp_path / "launched.shard0.sam").exists()
 
 
-def test_cli_shard_merge_bgzf(idx_prefix, tmp_path, monkeypatch):
+def test_cli_shard_merge_bgzf(idx_prefix, tmp_path, monkeypatch, r1_path):
     """Sharded -g runs merge into a valid BGZF whose decompressed text
     equals the single-process run (chunk extents are compressed sizes;
     parallel_aux.c:2941-3073 analog)."""
@@ -352,7 +363,7 @@ def test_cli_shard_merge_bgzf(idx_prefix, tmp_path, monkeypatch):
     from mpibwa_tpu.io.bgzf import BGZF_EOF
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(120 * 4)))
     out1 = tmp_path / "one"
     assert main(["mem", "-g", "-K", "2000", "-o", str(out1), idx_prefix,
@@ -376,7 +387,8 @@ def test_cli_shard_merge_bgzf(idx_prefix, tmp_path, monkeypatch):
         strip(gzip.decompress((tmp_path / "one.gz").read_bytes()).decode())
 
 
-def test_cli_bychr_shard_merge(idx_prefix, tmp_path, monkeypatch):
+def test_cli_bychr_shard_merge(idx_prefix, tmp_path, monkeypatch, r1_path,
+                               r2_path):
     """Sharded membychr + mergebychr equals the single-process by-chr run
     (the mpiBWAByChr write stage, mainParallelByChromosome.c:1462-1563)."""
     import os
@@ -384,8 +396,8 @@ def test_cli_bychr_shard_merge(idx_prefix, tmp_path, monkeypatch):
     from mpibwa_tpu.cli import main
 
     inter = tmp_path / "inter.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f1, \
-            open(fastq_path("HCC1187C_R2_10K.fastq")) as f2, \
+    with open(r1_path) as f1, \
+            open(r2_path) as f2, \
             open(inter, "w") as out:
         for _ in range(150):
             for _ in range(4):
@@ -420,7 +432,7 @@ def test_cli_preflight(idx_prefix, tmp_path, capsys):
                  str(sub)]) == 2
 
 
-def test_cli_bgzf_output(idx_prefix, tmp_path):
+def test_cli_bgzf_output(idx_prefix, tmp_path, r1_path):
     """-g writes BGZF (.gz) output that gunzips to the SAM text, ending
     with the 28-byte BGZF EOF magic (mainParallel.c:1509-1516)."""
     import gzip
@@ -429,7 +441,7 @@ def test_cli_bgzf_output(idx_prefix, tmp_path):
     from mpibwa_tpu.io.bgzf import BGZF_EOF
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(50 * 4)))
     out = tmp_path / "zz"
     assert main(["mem", "-g", "-o", str(out), idx_prefix, str(sub)]) == 0
@@ -444,7 +456,7 @@ def test_cli_bgzf_output(idx_prefix, tmp_path):
     assert strip(text) == strip(want)
 
 
-def test_cli_bam_output(idx_prefix, tmp_path):
+def test_cli_bam_output(idx_prefix, tmp_path, r1_path):
     """-b writes .bam output — the reference's BAM is BGZF-compressed SAM
     text: compressed header block(s), per-chunk body block runs, and the
     28-byte BGZF EOF magic (mainParallel.c:1509-1516,
@@ -454,7 +466,7 @@ def test_cli_bam_output(idx_prefix, tmp_path):
     from mpibwa_tpu.io.bgzf import BGZF_EOF, BGZFReader, is_bgzf
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(50 * 4)))
     out = tmp_path / "bb"
     assert main(["mem", "-b", "-o", str(out), idx_prefix, str(sub)]) == 0
@@ -472,7 +484,7 @@ def test_cli_bam_output(idx_prefix, tmp_path):
     assert strip(text) == strip(want)
 
 
-def test_cli_bychr_bam_output(idx_prefix, tmp_path):
+def test_cli_bychr_bam_output(idx_prefix, tmp_path, r1_path, r2_path):
     """membychr -b: every per-chromosome file (incl. discordant/unmapped)
     is BGZF-of-SAM with its own EOF magic (mainParallelByChromosome.c
     :1514-1563, :1591-1599) and decodes to the per-chr SAM run."""
@@ -482,8 +494,8 @@ def test_cli_bychr_bam_output(idx_prefix, tmp_path):
     from mpibwa_tpu.io.bgzf import BGZF_EOF, BGZFReader
 
     inter = tmp_path / "inter.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f1, \
-            open(fastq_path("HCC1187C_R2_10K.fastq")) as f2, \
+    with open(r1_path) as f1, \
+            open(r2_path) as f2, \
             open(inter, "w") as out:
         for _ in range(60):
             for _ in range(4):
@@ -509,29 +521,30 @@ def test_cli_bychr_bam_output(idx_prefix, tmp_path):
         assert strip(text) == strip(want), name
 
 
-def test_sharded_scan_matches_full_scan(tmp_path):
+def test_sharded_scan_matches_full_scan(tmp_path, r1_path):
     """Cooperative striped scanning (scan_fastq_sharded) must reproduce the
     full-scan offset index bit for bit, for any shard/N (chunk boundaries
     depend on it; shard-invariance of output depends on this)."""
     import glob
+    import os
     import shutil
+    import tempfile
 
     import numpy as np
 
     from mpibwa_tpu.io.fastq import scan_fastq, scan_fastq_sharded
 
-    from conftest import fastq_path
-
-    path = str(fastq_path("HCC1187C_R1_10K.fastq"))
+    path = str(r1_path)
+    rendezvous = os.path.join(tempfile.gettempdir(), "mpibwa_fqidx_*")
     full = scan_fastq(path)
     for n in (2, 5):
-        for d in glob.glob("/tmp/mpibwa_fqidx_*"):
+        for d in glob.glob(rendezvous):
             shutil.rmtree(d, ignore_errors=True)
         for s in range(n):
             ix = scan_fastq_sharded(path, s, n)
             assert np.array_equal(ix.offsets, full.offsets), (n, s)
             assert np.array_equal(ix.l_seq, full.l_seq), (n, s)
-    for d in glob.glob("/tmp/mpibwa_fqidx_*"):
+    for d in glob.glob(rendezvous):
         shutil.rmtree(d, ignore_errors=True)
 
 
@@ -558,14 +571,14 @@ def test_find_record_start_heuristic(tmp_path):
             assert got == want, (pos, got, want)
 
 
-def test_cli_launch_multihost_local_groups(idx_prefix, tmp_path):
+def test_cli_launch_multihost_local_groups(idx_prefix, tmp_path, r1_path):
     """--hosts with two "localhost" entries: the multi-host code path
     (host round-robin, per-host process groups, merge) with local spawns;
     output equals the single-process run."""
     from mpibwa_tpu.cli import main
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(120 * 4)))
     out1 = tmp_path / "one"
     assert main(["mem", "-K", "2000", "-o", str(out1), idx_prefix,
@@ -630,7 +643,8 @@ def test_bgzf_line_boundary_packing():
             del nxt
 
 
-def test_cli_launch_remote_rsh_branch(idx_prefix, tmp_path, monkeypatch):
+def test_cli_launch_remote_rsh_branch(idx_prefix, tmp_path, monkeypatch,
+                                      r1_path):
     """The remote (rsh) branch of `launch --hosts`: a non-local hostname
     routes each shard through the remote shell with the environment ON THE
     COMMAND LINE (cd-to-cwd pinning, shlex quoting, MPIBWA_* +
@@ -640,8 +654,7 @@ def test_cli_launch_remote_rsh_branch(idx_prefix, tmp_path, monkeypatch):
     (env -i: fresh $HOME, no inherited variables — only PATH survives,
     which a real remote login shell would provide). The shard therefore
     sees ONLY what the quoted command line carried; the merged output must
-    equal the single-process run (mpirun -hostfile parity,
-    /root/reference/docs/README.md:300+)."""
+    equal the single-process run (mpirun -hostfile parity)."""
     import pathlib
     import stat
 
@@ -661,7 +674,7 @@ def test_cli_launch_remote_rsh_branch(idx_prefix, tmp_path, monkeypatch):
     shim.chmod(shim.stat().st_mode | stat.S_IXUSR)
 
     sub = tmp_path / "sub.fq"
-    with open(fastq_path("HCC1187C_R1_10K.fastq")) as f:
+    with open(r1_path) as f:
         sub.write_text("".join(next(f) for _ in range(120 * 4)))
     out1 = tmp_path / "one"
     assert main(["mem", "-K", "2000", "-o", str(out1), idx_prefix,
